@@ -1,4 +1,4 @@
-"""Headline benchmarks on one chip. Prints ONE JSON line.
+"""Headline benchmarks on one GPU. Prints ONE JSON line per finished config.
 
 Headline metric (BASELINE.md config 4): dragon-class mesh — 327k-triangle
 procedural scan stand-in (utils/meshgen.py; no network for the real dragon
@@ -11,15 +11,20 @@ rustracer-core/src/renderer.rs:17).
   - cornell_fwd_rays_per_s        (config 2: 256x256 @ 16spp path)
   - cornell_fwdbwd_rays_per_s     (config 2 forward+backward: value_and_grad
                                    of an image loss w.r.t. material textures)
+and the device the numbers come from: JAX's platform, kind and count, and the
+card's name and power limit as nvidia-smi reports them.
 
-The reference publishes no numbers (BASELINE.md); the baseline divisor is the
-self-defined 1.0 Mray/s figure recorded in BASELINE.md for a single-CPU
-PBRT-class tracer, so vs_baseline = value / 1e6.
+The run refuses any backend but a GPU, and exits non-zero when a config
+raised. The reference publishes no numbers (BASELINE.md); the baseline
+divisor is the self-defined 1.0 Mray/s figure recorded in BASELINE.md for a
+single-CPU PBRT-class tracer, so vs_baseline = value / 1e6.
 """
 import json
 import os
 import sys
+import tempfile
 import time
+import traceback
 
 
 def log(msg):
@@ -37,6 +42,10 @@ CORNELL_SPP = 16
 DRAGON_RES = (1024, 1024)
 DRAGON_SPP = 64
 MAX_DEPTH = 5
+# BVH tables of the procedural meshes, keyed on mesh content and builder
+# source (git-ignored, inside the checkout)
+BVH_CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             ".bvh_cache")
 
 
 def build_cornell():
@@ -94,10 +103,11 @@ def build_dragon(sub=7, res=None, spp=None, ply_roundtrip=True):
         # roundtrip through the PLY exporter/loader so the loader is
         # exercised at benchmark scale (real dragon PLYs not fetchable)
         from rustracer_tpu.utils.plyio import read_ply, write_ply
-        ply_path = "/tmp/bench_dragon.ply"
-        write_ply(ply_path, mv, mf, n=mn)
-        t0 = time.perf_counter()
-        mv, mn, _, mf = read_ply(ply_path)
+        with tempfile.TemporaryDirectory() as tmp:
+            ply_path = os.path.join(tmp, "dragon.ply")
+            write_ply(ply_path, mv, mf, n=mn)
+            t0 = time.perf_counter()
+            mv, mn, _, mf = read_ply(ply_path)
         log(f"PLY load: {mf.shape[0]} tris in {time.perf_counter()-t0:.2f}s")
     n_mesh = mf.shape[0]
 
@@ -139,18 +149,18 @@ def build_dragon(sub=7, res=None, spp=None, ply_roundtrip=True):
         t_alpha_tex=np.full(n_tris, -1, np.int32),
     )
     from rustracer_tpu.scene.tables import make_geometry
-    # /tmp BVH cache: the SAH build dominates bench wall time (~170 s for
-    # 327k + 1M on this 2-CPU host) and the scene is deterministic per
-    # subdiv level — keyed on a content fingerprint so any mesh change
-    # invalidates it. Keeps the driver's budgeted run inside BENCH_BUDGET_S.
+    # BVH file cache: the SAH build of the 1.31M mesh is a large share of
+    # the bench's set-up, and the scene is deterministic per subdiv level —
+    # keyed on a content fingerprint so any mesh change invalidates it.
     import hashlib
     import rustracer_tpu.accel.bvh as _bvhmod
     # the key includes the BUILDER source hash: a stale cache from an older
     # build_bvh_arrays (changed packing/split logic) must never be reused
-    ver = hashlib.sha1(open(_bvhmod.__file__, "rb").read()).hexdigest()[:8]
+    with open(_bvhmod.__file__, "rb") as f:
+        ver = hashlib.sha1(f.read()).hexdigest()[:8]
     fp = hashlib.sha1(np.ascontiguousarray(tv_p[::257]).tobytes()
                       + t_idx[::257].tobytes()).hexdigest()[:16]
-    cache = f"/tmp/bench_bvh_{sub}_{n_tris}_{fp}_{ver}.npz"
+    cache = os.path.join(BVH_CACHE_DIR, f"bvh_{sub}_{n_tris}_{fp}_{ver}.npz")
     bvh = None
     if os.path.exists(cache):
         try:
@@ -165,6 +175,7 @@ def build_dragon(sub=7, res=None, spp=None, ply_roundtrip=True):
         bvh = build_bvh_arrays(None, tris)
         log(f"BVH built in {time.perf_counter()-t0:.1f}s")
         try:
+            os.makedirs(BVH_CACHE_DIR, exist_ok=True)
             np.savez(cache, **bvh)
         except Exception as e:
             log(f"BVH cache write failed ({e!r})")
@@ -207,24 +218,31 @@ def build_dragon(sub=7, res=None, spp=None, ply_roundtrip=True):
     return ctx, cam, film, sampler, integ, n_tris
 
 
-def build_bathroom(res=(1920, 1080)):
-    """BASELINE config 5: the bathroom interior (scenes/bathroom.pbrt —
-    18 imagemap materials through the shared atlas, window + lamps +
-    infinite sky, DoF, spatial light grid) re-driven at 1080p through the
-    full parser."""
-    import re
-
+def write_bathroom_scene(path, res=(1920, 1080)):
+    """Write scenes/bathroom.pbrt to `path` at resolution `res`, with its
+    texture paths made absolute so the copy parses from anywhere."""
     repo = os.path.dirname(os.path.abspath(__file__))
-    src = open(os.path.join(repo, "scenes", "bathroom.pbrt")).read()
+    with open(os.path.join(repo, "scenes", "bathroom.pbrt")) as f:
+        src = f.read()
     src = src.replace('"integer xresolution" [320]',
                       f'"integer xresolution" [{res[0]}]')
     src = src.replace('"integer yresolution" [180]',
                       f'"integer yresolution" [{res[1]}]')
     src = src.replace('["textures/', f'["{repo}/scenes/textures/')
-    path = "/tmp/bench_bathroom.pbrt"
-    open(path, "w").write(src)
+    with open(path, "w") as f:
+        f.write(src)
+
+
+def build_bathroom(res=(1920, 1080)):
+    """BASELINE config 5: the bathroom interior (scenes/bathroom.pbrt —
+    18 imagemap materials through the shared atlas, window + lamps +
+    infinite sky, DoF, spatial light grid) re-driven at 1080p through the
+    full parser."""
     from rustracer_tpu.scene.api import parse_scene
-    api = parse_scene(path)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bathroom.pbrt")
+        write_bathroom_scene(path, res)
+        api = parse_scene(path)
     sc = api.scene
     return sc.context(), sc.camera, sc.film, sc.sampler, sc.integrator
 
@@ -262,20 +280,19 @@ def bench_forward(ctx, cam, film, sampler, integ, res, spp, n_runs,
     return res[0] * res[1] * spp_measure / best
 
 
-def bench_cornell_fwdbwd(ctx, cam, film, sampler, integ, n_runs=3,
-                         remat=False, compact=False):
-    """Forward+backward rays/s: value_and_grad of a full-render image loss
-    w.r.t. the material textures (BASELINE.json fwd+bwd metric).
+def make_cornell_fwdbwd(ctx, cam, film, sampler, integ, remat=False,
+                        compact=False):
+    """jit(value_and_grad) of a full-frame image loss w.r.t. the material
+    textures (BASELINE.json fwd+bwd metric) → (vg, camera rays per call).
 
+    loss(textures) = mean(image**2) over a min(4, spp)-sample image at the
+    film's full resolution.
     remat: jax.checkpoint around each sample's radiance (recompute the
     bounce forward during backward instead of storing residuals).
-    compact: leave the integrator's inter-bounce compaction on.
-    Swept on chip (tools/exp_fwdbwd.py, round 5): remat=False
-    compact=False wins at 1.94 Mray/s — the round-2..4 jax.checkpoint
-    cost 39% (residuals fit in HBM at Cornell scale; the recompute was
-    pure waste), and compaction never triggers on a closed box so its
-    argsort/cond overhead is deadweight there (its custom_vjp exists for
-    open differentiable scenes, grad-parity-tested)."""
+    compact: leave the integrator's inter-bounce compaction on. Off by
+    default: it never triggers on a closed box, so its argsort/cond is dead
+    weight there (its custom_vjp exists for open differentiable scenes and
+    is grad-parity-tested). Neither default has been measured on H100."""
     import dataclasses
 
     import jax
@@ -287,8 +304,7 @@ def bench_cornell_fwdbwd(ctx, cam, film, sampler, integ, n_runs=3,
     from rustracer_tpu.render.renderer import Lanes, scrub_radiance
     from rustracer_tpu.render.sampler import DimAllocator
 
-    res = CORNELL_RES
-    xr, yr = res
+    xr, yr = film.full_resolution
     xs, ys = np.meshgrid(np.arange(xr, dtype=np.int32),
                          np.arange(yr, dtype=np.int32))
     px = jnp.asarray(xs.ravel())
@@ -321,7 +337,17 @@ def bench_cornell_fwdbwd(ctx, cam, film, sampler, integ, n_runs=3,
         mean_img = total / spp_bwd
         return jnp.mean(mean_img ** 2)
 
-    vg = jax.jit(jax.value_and_grad(loss_fn))
+    return jax.jit(jax.value_and_grad(loss_fn)), xr * yr * spp_bwd
+
+
+def bench_cornell_fwdbwd(ctx, cam, film, sampler, integ, n_runs=3,
+                         remat=False, compact=False):
+    """Forward+backward rays/s of make_cornell_fwdbwd's step."""
+    import jax
+    import numpy as np
+
+    vg, n_rays = make_cornell_fwdbwd(ctx, cam, film, sampler, integ,
+                                     remat=remat, compact=compact)
     log("fwd+bwd: compiling value_and_grad ...")
     loss, grads = vg(ctx.textures)   # compile + warmup
     jax.block_until_ready(grads)
@@ -333,8 +359,7 @@ def bench_cornell_fwdbwd(ctx, cam, film, sampler, integ, n_runs=3,
         loss, grads = vg(ctx.textures)
         jax.block_until_ready(grads)
         times.append(time.perf_counter() - t0)
-    best = min(times)
-    return res[0] * res[1] * spp_bwd / best
+    return n_rays / min(times)
 
 
 def main():
@@ -342,14 +367,23 @@ def main():
     EVERY config — a timeout mid-way still leaves the best-so-far line on
     stdout (round-2 lesson: one slow compile must not zero out all
     metrics). Remaining configs are skipped once the soft wall budget is
-    spent."""
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    spent. Exits non-zero if any config raised."""
+    from rustracer_tpu.utils.device import (card_label,
+                                            configure_compile_cache,
+                                            require_gpu)
+    configure_compile_cache()
+    device = require_gpu("bench.py")
+    card = card_label()
+    log(f"device: {device}; card: {card}")
 
     t_start = time.time()
     budget_s = float(os.environ.get("BENCH_BUDGET_S", 540))
-    results = {}
+    results = {"device": device, "card": card}
+    failed = []
+
+    def fail(config):
+        log(f"{config} config failed:\n{traceback.format_exc()}")
+        failed.append(config)
 
     def emit():
         dragon = results.get("dragon_fwd_rays_per_s")
@@ -383,8 +417,8 @@ def main():
             ctx, cam, film, sampler, integ, DRAGON_RES, DRAGON_SPP,
             n_runs=2, max_lanes=1 << 18, spp_measure=8), 1)
         emit()
-    except Exception as e:  # keep the remaining configs alive
-        log(f"dragon config failed: {e!r}")
+    except Exception:  # keep the remaining configs alive
+        fail("dragon")
 
     dragon_cfg = None
     if "dragon_fwd_rays_per_s" in results:
@@ -400,8 +434,8 @@ def main():
                 ctx, cam, film, sampler, integ, CORNELL_RES, CORNELL_SPP,
                 n_runs=5), 1)
             emit()
-        except Exception as e:
-            log(f"cornell fwd config failed: {e!r}")
+        except Exception:
+            fail("cornell fwd")
             ctx = None
     else:
         log("skipping cornell fwd: budget spent")
@@ -413,8 +447,8 @@ def main():
             results["cornell_fwdbwd_rays_per_s"] = round(
                 bench_cornell_fwdbwd(ctx, cam, film, sampler, integ), 1)
             emit()
-        except Exception as e:
-            log(f"cornell fwd+bwd config failed: {e!r}")
+        except Exception:
+            fail("cornell fwd+bwd")
     else:
         log("skipping cornell fwd+bwd: budget spent or fwd failed")
 
@@ -424,20 +458,19 @@ def main():
         try:
             log(f"building bathroom 1080p scene ... ({left():.0f}s left)")
             bctx, bcam, bfilm, bsamp, binteg = build_bathroom()
-            # 2 runs x 4 spp (~50 s each at the r04 rate): sturdier than
-            # the r04 2x2-spp slice the judge flagged as thin
+            # 2 runs x a 4-spp slice
             results["bathroom1080_fwd_rays_per_s"] = round(bench_forward(
                 bctx, bcam, bfilm, bsamp, binteg, (1920, 1080), bsamp.spp,
                 n_runs=2, max_lanes=1 << 18, spp_measure=4), 1)
             emit()
-        except Exception as e:
-            log(f"bathroom config failed: {e!r}")
+        except Exception:
+            fail("bathroom")
     else:
         log("skipping bathroom 1080p: budget spent")
 
     # scale proof: 1.31M-tri hero mesh (subdiv 8), same scene structure,
     # 512^2 @ 4spp measured slice. Runs last so a tight budget skips it
-    # rather than the headline configs; cache-warm runs take ~60s.
+    # rather than the headline configs.
     if left() > 60:
         try:
             log(f"building dragon-1M scene (subdiv 8) ... ({left():.0f}s left)")
@@ -450,14 +483,13 @@ def main():
                 ctx1m, cam1m, film1m, samp1m, integ1m, (512, 512), 8,
                 n_runs=2, max_lanes=1 << 18, spp_measure=4), 1)
             emit()
-        except Exception as e:
-            log(f"dragon-1M config failed: {e!r}")
+        except Exception:
+            fail("dragon-1M")
     else:
         log("skipping dragon-1M: budget spent")
 
-    # headline continuity: the SAME dragon geometry with the r04
-    # constant-matte hero material (no atlas/EWA), so the textured-vs-matte
-    # delta is measurable and the r02..r04 history stays apples-to-apples
+    # the SAME dragon geometry with a constant-matte hero material (no
+    # atlas/EWA), so the textured-vs-matte delta is measurable
     if dragon_cfg is None:
         log("skipping dragon matte variant: dragon config did not run")
     elif left() > 60:
@@ -481,14 +513,18 @@ def main():
                 ctx2, dcam, dfilm, dsamp, integ2, DRAGON_RES, DRAGON_SPP,
                 n_runs=2, max_lanes=1 << 18, spp_measure=8), 1)
             emit()
-        except Exception as e:
-            log(f"dragon matte variant failed: {e!r}")
+        except Exception:
+            fail("dragon matte")
     else:
         log("skipping dragon matte variant: budget spent")
 
     results["wall_s"] = round(time.time() - t_start, 1)
     emit()
+    if failed:
+        log(f"failed configs: {failed}")
+        return 1
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -271,12 +271,11 @@ def build_bvh_arrays(quad, tris, split_method="sah", max_prims=4):
         built = build_bvh(lo, hi, split_method, max_prims)
     nodes_lo, nodes_hi, meta, prims = built
 
-    # --- pack for TPU traversal ---
-    # Incoherent gathers on TPU are latency-bound per *gather op*, not per
-    # byte: one (N, 8) row gather costs the same as one (N,) scalar gather
-    # (measured). So each node is one 32-byte record and each leaf is one
-    # 160-byte record holding its ≤4 baked triangles; the traversal kernel
-    # issues exactly two gathers per step instead of ~50.
+    # --- pack for device traversal ---
+    # Packed for gathers that cost per *gather op* rather than per byte:
+    # each node is one 32-byte record and each leaf is one 160-byte record
+    # holding its ≤4 baked triangles; the traversal kernel issues exactly
+    # two gathers per step instead of ~50.
     import numpy as np
     n_nodes = meta.shape[0]
     is_leaf = meta[:, 1] > 0
@@ -316,7 +315,7 @@ def build_bvh_arrays(quad, tris, split_method="sah", max_prims=4):
     out = dict(bvh_lo=nodes_lo, bvh_hi=nodes_hi, bvh_meta=meta,
                bvh_prims=prims, bvh_nodes_packed=packed,
                bvh_leaf_packed=leaf_packed, bvh_threaded=threaded)
-    # 16-wide structure (accel/wide.py) — the TPU hot path; the binary
+    # 16-wide structure (accel/wide.py) — the device hot path; the binary
     # arrays above remain for tests/fallback
     from .wide import build_wide_arrays
     wide = build_wide_arrays(tris, split_method)

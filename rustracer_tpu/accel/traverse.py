@@ -4,7 +4,7 @@ Reference: rustracer-core/src/bvh/mod.rs:366-501 — iterative traversal with
 a fixed 64-deep stack, precomputed inv_dir/dir_is_neg slab tests, near-child
 ordering by split axis, and the separate early-out shadow variant.
 
-TPU redesign: the stack is gone entirely. The host builder threads the tree
+Wavefront redesign: the stack is gone entirely. The host builder threads the tree
 per ray-direction octant (accel/bvh.py::thread_bvh) with hit/miss links that
 encode exactly the reference's near-first DFS order: on a node hit the lane
 follows the hit link (near child); on a miss — or after testing a leaf — it
@@ -13,17 +13,15 @@ state is just {node pointer, t_best, prim, done}; per iteration the kernel
 issues ONE packed 32-byte node gather and ONE packed 160-byte leaf gather
 (accel/bvh.py packs ≤4 baked triangles per leaf record).
 
-Why this wins on TPU: the previous round carried a (64, B) one-hot stack
-through the `lax.while_loop` — every iteration re-selected and re-summed a
-16 MB tensor at B=65k lanes, dominating the traversal cost (~0.11 Mray/s on
-an 82k-tri mesh). The threaded kernel visits the *same* nodes in the *same*
-order with ~48 bytes of gather per lane-step and ~60 VPU flops.
+Why threaded: an earlier version carried a (64, B) one-hot stack through
+the `lax.while_loop` — every iteration re-selected and re-summed a 16 MB
+tensor at B=65k lanes. The threaded kernel visits the *same* nodes in the
+*same* order with ~48 bytes of gather per lane-step and ~60 flops.
 
-Remaining TPU-specific choices (measured on v5e):
-- Per-lane math is component-form (B,) scalars — (B, 3) intermediates put
-  the size-3 axis on the 128-lane dim at ~2% utilization.
-- Incoherent gathers are latency-bound per gather *op*, not per byte, so
-  node and leaf data are single packed records (one gather each).
+Layout choices:
+- Per-lane math is component-form (B,) scalars, with no (B, 3)
+  intermediates whose size-3 axis would be the minor one.
+- Node and leaf data are single packed records (one gather each).
 - Links are pre-offset per octant (node pointer indexes the (8N, 8) table
   directly); lanes of mixed octants coexist in one wavefront.
 """

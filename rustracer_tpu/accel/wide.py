@@ -1,13 +1,13 @@
 """Host-side 16-wide BVH build: collapse the binary SAH tree, pack 128-float
 node/leaf records, order children per ray octant.
 
-Why 16-wide on TPU: incoherent gathers cost ~one ROW per lane-step no matter
-the row width (measured on v5e: (N,8) and (N,128) row gathers both run at
-~50-110 M rows/s), so traversal throughput is set by ROWS PER RAY. A binary
-threaded tree needs ~100-190 rows/ray (accel/traverse.py); a 16-ary tree with
-8-triangle leaves needs ~12-25: one 128-float record carries either 16 child
-AABBs + links or 8 full triangles. This is the TPU replacement for the
-reference's binary stack traversal (rustracer-core/src/bvh/mod.rs:366-433);
+Why 16-wide: the traversal was designed for a machine on which an
+incoherent gather costs about one ROW per lane-step whatever the row width,
+so its throughput is set by ROWS PER RAY. A binary threaded tree needs
+~100-190 rows/ray (accel/traverse.py); a 16-ary tree with 8-triangle leaves
+needs ~12-25: one 128-float record carries either 16 child AABBs + links or
+8 full triangles. Whether that trade holds on H100, with its caches, is not
+yet measured. This replaces the reference's binary stack traversal (rustracer-core/src/bvh/mod.rs:366-433);
 the SAH build itself (accel/bvh.py / native builder) is reused and collapsed.
 
 Unified record table, (R, 128) float32, three record types by tag (word 0,

@@ -4,11 +4,11 @@ Reference: rustracer-core/src/interpolation.rs — catmull_rom_weights
 (:108-156), integrate_catmull_rom (:158-186), invert_catmull_rom (:188-260),
 fourier (:262-276), sample_fourier (:279-352), sample_catmull_rom_2d (:6-106).
 
-TPU-native differences: every routine is batched over lanes; the reference's
+Wavefront differences: every routine is batched over lanes; the reference's
 "iterate until |F-u|<1e-6" Newton-bisection loops become fixed-trip
 `lax.fori_loop`s (converged lanes keep refining harmlessly); the cosine
-recurrence cos(k φ) becomes a dense (B, m_max) cos evaluation — one VPU op
-instead of a serial dependency chain.
+recurrence cos(k φ) becomes a dense (B, m_max) cos evaluation — one
+elementwise op instead of a serial dependency chain.
 """
 from __future__ import annotations
 

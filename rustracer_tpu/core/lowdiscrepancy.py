@@ -2,7 +2,7 @@
 
 Reference: rustracer-core/src/sampler/{lowdiscrepancy,zerotwosequence}.rs.
 The reference generates scrambled van-der-Corput / Sobol' points with
-gray-code incremental updates; on TPU we instead evaluate sample i directly
+gray-code incremental updates; on the device we instead evaluate sample i directly
 with bit-twiddling (branch-free, O(1) per lane):
   dim 0: bit-reversed index (van der Corput), XOR-scrambled
   dim 1: Pascal-matrix (mod 2) Sobol' component, XOR-scrambled

@@ -1,9 +1,9 @@
 """Vector/point/normal math over (..., 3) arrays.
 
-TPU-native replacement for the reference's scalar `Vector3f/Point3f/Normal3f`
+Batched replacement for the reference's scalar `Vector3f/Point3f/Normal3f`
 types (reference: rustracer-core/src/geometry/). Everything here is shape-
 polymorphic and batched: a "vector" is any array whose trailing axis has
-length 3, so whole ray wavefronts are one array and ops vectorize on the VPU.
+length 3, so whole ray wavefronts are one array and ops vectorize.
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 Replaces the reference's PCG32 (rustracer-core/src/rng.rs) with stateless,
 per-lane integer hashing: every lane of a wavefront derives its random numbers
 from (seed, pixel, sample, dimension) with no sequential state — the natural
-TPU-native design (vectorizes on the VPU, reproducible under any sharding).
+wavefront design (vectorizes, reproducible under any sharding).
 """
 from __future__ import annotations
 

@@ -163,9 +163,10 @@ class Transform:
 # --- device-side batched apply (jnp; matrices (..., 4, 4) or (4, 4)) ---
 #
 # NOTE: deliberately scalar-unrolled (no einsum/dot_general). Tiny-matrix
-# dot_generals fused between elementwise stages crash or stall the XLA TPU
-# fusion pass (SIGILL in TpuPriorityFusionQueue); the unrolled mul/add form
-# compiles instantly, fuses cleanly, and is exactly the same FLOPs on the VPU.
+# dot_generals fused between elementwise stages crashed or stalled the
+# fusion pass of the previous accelerator's XLA backend; the unrolled
+# mul/add form fuses cleanly and is exactly the same FLOPs. Whether the
+# plain form compiles as well on the GPU is ROADMAP queue 3 item 3.
 
 def apply_mat3(m, x, y, z):
     """Rows of m[..., :3, :3] applied to (x, y, z) components."""

@@ -1,7 +1,7 @@
 """Path integrator: NEE+MIS path tracing over masked wavefronts.
 
 Reference: rustracer-core/src/integrator/path.rs:96-216. Two deliberate
-TPU-first departures from the reference's per-sample recursion:
+wavefront departures from the reference's per-sample recursion:
 
 1. **lax.scan bounce loop.** The per-sample loop becomes ONE compiled bounce
    body scanned over the interior bounces (a Python unroll compiled the full
@@ -49,8 +49,8 @@ PATH_COMPACT_MIN_B = 1 << 16
 # The alive-first compaction is a permutation slice: sub = x[sel] with
 # sel = order[:H]. XLA's generic VJP for the gather is a scatter-ADD (it
 # cannot know sel is duplicate-free), and the VJP of full.at[sel].set(sub)
-# likewise scatters — both lower poorly on TPU and cost ~14% on fwd+bwd
-# (round-4 measurement that forced compact_interior off under grad). These
+# likewise scatters (an earlier measurement of those scatters forced
+# compact_interior off under grad; not yet measured on H100). These
 # custom_vjps exploit the permutation structure: the transpose of "take by
 # sel" is "gather by the lane's rank, masked to the kept prefix", and the
 # transpose of "put at sel" is a mask + a gather — no scatter anywhere.
@@ -131,11 +131,11 @@ class PathIntegrator:
     rr_threshold: float = 1.0
     max_interface_skips: int = 8
     # inter-bounce tiered compaction (see _run): a FORWARD-render
-    # optimization (+5% dragon end-to-end for the half tier, +3.2% more
-    # from the quarter tier). Under value_and_grad the
-    # sort/cond/gather-scatter transposes cost more than the narrowed scan
-    # saves (measured -14% on cornell fwd+bwd) — differentiable-rendering
-    # callers should dataclasses.replace(integ, compact_interior=False).
+    # optimization (half and quarter tiers). Under value_and_grad the
+    # sort/cond/gather-scatter transposes were measured to cost more than
+    # the narrowed scan saves (not yet re-measured on H100) —
+    # differentiable-rendering callers should
+    # dataclasses.replace(integ, compact_interior=False).
     compact_interior: bool = True
     # deepest compaction tier: 1 = B/2 slab only (the round-4 behavior),
     # 2 = add a B/4 slab chosen when <= a quarter of the lanes are alive
@@ -356,9 +356,9 @@ class PathIntegrator:
                     and B0 % 2 == 0:
                 # inter-bounce TIERED compaction: open scenes kill most
                 # lanes at bounce 0, yet every scanned bounce pays
-                # full-width shading/NEE VPU work — measured 51% of the
-                # dragon step (tools/profile_dragon.py; alive fractions
-                # there decay 24.5% -> 3.6% -> 0.3% across bounces). The
+                # full-width shading/NEE work (tools/profile_dragon.py;
+                # alive fractions on the dragon decay 24.5% -> 3.6% ->
+                # 0.3% across bounces). The
                 # slab width is chosen ONCE, before the interior scan, by a
                 # runtime cond chain on the alive count: <= B/4 lanes
                 # alive runs the whole scan in a quarter slab, <= B/2 in a
@@ -367,16 +367,16 @@ class PathIntegrator:
                 # full-width body only ever updates them under alive
                 # masks), so results are identical.
                 #
-                # Two variants measured and REJECTED on the dragon
-                # (interleaved A/B, docs/PERF.md round 5):
+                # Two variants were measured slower on the dragon on the
+                # previous accelerator (not yet re-measured on H100):
                 #  - re-compacting B/2 -> B/4 mid-scan (between bounces 1
                 #    and 2): the extra argsort + gather/scatter round trip
                 #    loses more than the narrower tail saves;
                 #  - moving the slab boundary BEFORE the bounce-0 scatter
-                #    (hit fraction is already ~0.25 there): -13% — the
-                #    cond boundary forces XLA to materialize the entire
-                #    camera SurfaceInteraction that otherwise fuses into
-                #    the scatter, and adds ~20 permutation gathers for it.
+                #    (hit fraction is already ~0.25 there): the cond
+                #    boundary forces XLA to materialize the entire camera
+                #    SurfaceInteraction that otherwise fuses into the
+                #    scatter, and adds ~20 permutation gathers for it.
                 H = B0 // 2
                 Q = B0 // 4
                 order = jnp.argsort(~st.alive)          # alive-first, stable

@@ -1,6 +1,6 @@
 """Native (C++) host-runtime components, loaded via ctypes.
 
-The TPU compute path is JAX/XLA; scene build is host work, and the BVH
+The device compute path is JAX/XLA; scene build is host work, and the BVH
 builder is its hot spot (reference: rustracer-core/src/bvh/mod.rs). The C++
 builder here is compiled on demand with g++ into a cached shared object next
 to the source. Everything degrades gracefully: if no compiler is available

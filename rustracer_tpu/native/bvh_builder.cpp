@@ -1,5 +1,5 @@
 // Native SAH BVH builder — the host-side "native runtime" piece of the
-// framework (scene build is host work; traversal runs on TPU).
+// framework (scene build is host work; traversal runs on the device).
 //
 // Mirrors the semantics of rustracer_tpu/accel/bvh.py::build_bvh, which in
 // turn follows the reference builder (rustracer-core/src/bvh/mod.rs:202-287:

@@ -2,7 +2,7 @@
 
 Reference: rustracer-core/src/bsdf/ (Bsdf + BxDF trait objects, mod.rs:94-251)
 and the concrete lobes in lambertian.rs / oren_nayar.rs / fresnel.rs /
-microfacet.rs / disney.rs. The TPU-native design replaces per-hit arena-
+microfacet.rs / disney.rs. The wavefront design replaces per-hit arena-
 allocated trait objects with a fixed-width SoA "lobe stack": every lane
 carries up to MAX_LOBES lobes as (type, params[16]) rows, and f/pdf/sample_f
 are branch-free masked evaluations over the set of lobe types that are

@@ -4,11 +4,11 @@ Reference: rustracer-core/src/bsdf/fourier.rs (FourierBSDFTable::read
 :340-420, f :44-110, sample_f :112-212, pdf :214-270). The .bsdf binary
 format is Jakob et al. 2014's layerlab output ("SCATFUN\\x01" header).
 
-TPU-native design: the ragged per-(muI,muO)-pair coefficient lists stay in
+Wavefront design: the ragged per-(muI,muO)-pair coefficient lists stay in
 one flat array (densifying to (N,N,3,m_max) would explode memory for real
 tables); evaluation gathers the 4x4 Catmull-Rom neighborhood's coefficient
 runs with masked fixed-width (m_pad) gathers and evaluates the cosine series
-as one dense (B, m_pad) VPU op. Multiple tables in a scene are padded to a
+as one dense (B, m_pad) elementwise op. Multiple tables in a scene are padded to a
 common shape and stacked along a leading table axis, indexed per lane.
 """
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """MIP-mapped image lookups, batched gathers.
 
 Reference: rustracer-core/src/mipmap.rs (pyramid build, trilinear `triangle`
-and EWA `lookup_diff`, wrap modes) + blockedarray.rs. On TPU the pyramid is a
+and EWA `lookup_diff`, wrap modes) + blockedarray.rs. Here the pyramid is a
 static list of (H, W, C) arrays; lookups are gather-based and differentiable
 w.r.t. the texel data. The reference's 8x8 BlockedArray tiling is dropped —
-XLA/HBM layout handles locality.
+XLA's device layout handles locality.
 
 EWA is approximated by multi-tap anisotropic filtering along the major axis
 (fixed tap count, vectorizes; same spirit, bounded cost) — the reference's
@@ -148,10 +148,10 @@ def lookup_ewa(pyramid, st, dst0, dst1, max_anisotropy=8.0, wrap=WRAP_REPEAT,
     major = jnp.where(major_is_0[..., None], dst0, dst1)
     # clamp anisotropy (scale the minor axis up, as the reference does)
     minor_len = jnp.maximum(minor_len, major_len / max_anisotropy)
-    # NOTE (round 5): a tap-axis vectorization (one (n_taps, B)-index
-    # gather per level) was measured SLOWER on chip via the atlas variant
-    # of the same restructure (textured dragon -12%; fusion loss beats the
-    # gather-merging win) — the scalar tap loop stays. See docs/PERF.md.
+    # NOTE: a tap-axis vectorization (one (n_taps, B)-index gather per
+    # level) was measured slower on the previous accelerator via the atlas
+    # variant of the same restructure (fusion loss beat the gather-merging
+    # win); not yet measured on H100, so the scalar tap loop stays.
     out = jnp.zeros(st.shape[:-1] + (pyramid[0].shape[-1],), pyramid[0].dtype)
     wsum = 0.0
     for i in range(n_taps):

@@ -165,7 +165,7 @@ def disk_intersect(o, d, t_max, height, radius, inner_radius, phi_max):
 
 
 def _sphere_hit_t(oc, dc, t_max, radius, z_min, z_max, phi_max):
-    """Closest-hit (t, hit) only, pure component math (TPU lane-dense)."""
+    """Closest-hit (t, hit) only, pure component math (lane-dense)."""
     ox, oy, oz = oc
     dx, dy, dz = dc
     a = dx * dx + dy * dy + dz * dz
@@ -246,7 +246,7 @@ def quadric_intersect(q_type, o, d, t_max, params):
     """Dispatch on quadric type with masked evaluation of all three kernels.
 
     All args broadcast; q_type (...,) int32. Cheap because the three kernels
-    share most subexpressions' cost and everything stays on the VPU.
+    share most subexpressions' cost and everything stays elementwise.
     """
     r0, r1, r2, r3 = params[..., 0], params[..., 1], params[..., 2], params[..., 3]
     hs = sphere_intersect(o, d, t_max, r0, r1, r2, r3)

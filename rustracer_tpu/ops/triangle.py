@@ -3,7 +3,7 @@
 Reference: rustracer-core/src/shapes/mesh.rs:214-260 (the PBRT watertight
 test: translate/permute/shear + edge functions). The reference's f64 fallback
 at exactly-zero edge functions (mesh.rs:236-244) is reproduced in pure f32 via
-error-free Dekker two-products (TPUs have no fast f64): where an edge function
+error-free Dekker two-products (no f64 on the device path): where an edge function
 rounds to exactly 0, its sign is re-resolved from the exactly-computed
 residual, which is at least as accurate as the f64 recompute.
 
@@ -31,10 +31,9 @@ class TriHit(NamedTuple):
 def _unpack(v):
     """(..., 3) → three (...,) components.
 
-    TPU layout note: all math below is component-wise over the lane batch —
-    a (B, 3) intermediate puts the size-3 axis on the 128-wide vector lane
-    dimension (~2% utilization); unpacking once and computing in (B,) scalars
-    keeps the VPU dense (measured ~13x on the watertight test).
+    Layout note: all math below is component-wise over the lane batch —
+    unpacking once and computing in (B,) scalars keeps the elementwise work
+    dense over B instead of over a size-3 minor axis.
     """
     return v[..., 0], v[..., 1], v[..., 2]
 
@@ -58,7 +57,7 @@ def _two_prod(a, b):
 def _edge_fn(ax, ay, bx, by):
     """Edge function ax*by - ay*bx with the mesh.rs:236-244 zero fallback:
     where the f32 result rounds to exactly 0, the sign is recovered from the
-    error-free residual (the TPU equivalent of the reference's f64 recompute;
+    error-free residual (the f32 equivalent of the reference's f64 recompute;
     the residual sum is a faithful rounding of the exact value)."""
     p1, e1 = _two_prod(ax, by)
     p2, e2 = _two_prod(ay, bx)

@@ -2,14 +2,15 @@
 
 Reference: rustracer-core/src/renderer.rs:56-76 — the reference's entire
 parallel runtime is N threads pulling image tiles from a locked queue. The
-TPU-native equivalent (SURVEY §2.4, §5.8): lanes (pixels x samples) shard
+wavefront equivalent (SURVEY §2.4, §5.8): lanes (pixels x samples) shard
 over a device mesh with `shard_map`; each device accumulates a partial film
 which is `psum`-reduced over the mesh (the film merge under mutex becomes a
 collective); scene tables are replicated. The differentiable training step
-psums parameter gradients the same way — gradients ride ICI, not host RAM.
+psums parameter gradients the same way, device to device.
 
-Mesh axes:
-  "data"   — pixel/tile data parallelism (maps to ICI ring)
+Mesh axes (the cards of one host are joined all to all, so the mesh shape
+follows the algorithm alone):
+  "data"   — pixel/tile data parallelism
   "sample" — samples-per-pixel parallelism (the wavefront analog of
              sequence parallelism; SURVEY §5.7)
 """

@@ -3,7 +3,7 @@
 Reference: rustracer-core/src/filter/ (Box, Triangle, Gaussian,
 Mitchell-Netravali). Each filter is a static config; `evaluate` is a pure
 batched function of offsets from the sample position — evaluated directly on
-the VPU instead of via the reference's precomputed 16x16 table (film.rs:92).
+the device instead of via the reference's precomputed 16x16 table (film.rs:92).
 """
 from __future__ import annotations
 

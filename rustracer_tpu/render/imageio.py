@@ -1,10 +1,12 @@
-"""Image I/O: PNG/TGA/EXR/HDR/PFM read; PNG/EXR write.
+"""Image I/O: PNG/TGA/EXR/HDR/PFM read; PNG/TGA/EXR write.
 
 Reference: rustracer-core/src/imageio.rs (PNG/TGA via the `image` crate with
 sRGB→linear, EXR via the `exr` crate, hand-rolled HDR/PFM readers, PNG
-gamma-encoded 8-bit + EXR float writers). PNG/TGA go through PIL here; EXR
-(scanline, none/ZIP/ZIPS compression, half/float) , Radiance HDR (RGBE) and
-PFM are hand-rolled with numpy.
+gamma-encoded 8-bit + EXR float writers). Everything is hand-rolled with
+zlib, struct and NumPy: PNG (8/16-bit, non-interlaced gray, gray+alpha, RGB,
+RGBA and palette, all five row filters), TGA (uncompressed and RLE
+true-color, grayscale and color-mapped), EXR (scanline, none/ZIP/ZIPS
+compression, half/float), Radiance HDR (RGBE) and PFM.
 """
 from __future__ import annotations
 
@@ -26,11 +28,9 @@ EXR_MAGIC = 20000630
 def read_image(path: str) -> np.ndarray:
     """→ (H, W, 3) float32 LINEAR RGB (imageio.rs:16 read_image)."""
     ext = os.path.splitext(path)[1].lower()
-    if ext in (".png", ".tga", ".jpg", ".jpeg", ".bmp"):
-        from PIL import Image
-        img = Image.open(path).convert("RGB")
-        arr = np.asarray(img, np.float32) / 255.0
-        return srgb_decode_np(arr)
+    if ext in (".png", ".tga"):
+        arr = read_png8(path) if ext == ".png" else read_tga8(path)
+        return srgb_decode_np(_to_rgb(arr).astype(np.float32) / 255.0)
     if ext == ".exr":
         return read_exr(path)
     if ext == ".hdr":
@@ -38,6 +38,213 @@ def read_image(path: str) -> np.ndarray:
     if ext == ".pfm":
         return read_pfm(path)
     raise ValueError(f"unsupported image format: {path}")
+
+
+def _to_rgb(arr: np.ndarray) -> np.ndarray:
+    """(H, W, C) 8-bit gray / gray+alpha / RGB / RGBA → (H, W, 3); alpha is
+    dropped, not composited."""
+    if arr.shape[2] <= 2:
+        return np.repeat(arr[..., :1], 3, axis=2)
+    return arr[..., :3]
+
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _paeth(a, b, c):
+    """PNG Paeth predictor on int arrays (left, up, up-left)."""
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _png_unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters → (h, stride) uint8.
+
+    Pixel (y, x) depends only on its left, upper and upper-left neighbours,
+    so every anti-diagonal y + x = d depends only on the two before it: the
+    rows are undone together, one diagonal at a time, each row by its own
+    filter type (w + h vector steps instead of w * h scalar ones)."""
+    rows = np.frombuffer(raw, np.uint8)[:h * (stride + 1)].reshape(
+        h, stride + 1)
+    ftype = rows[:, 0]
+    if (ftype > 4).any():
+        raise ValueError(f"bad PNG filter type {ftype.max()}")
+    w = stride // bpp
+    cur = rows[:, 1:].astype(np.int16).reshape(h, w, bpp)
+    f = ftype[:, None].astype(np.int16)
+    # out[y + 1, x + 1] is pixel (y, x); row 0 and column 0 are the zeros
+    # the filters see outside the image
+    out = np.zeros((h + 1, w + 1, bpp), np.int16)
+    for d in range(h + w - 1):
+        ys = np.arange(max(0, d - w + 1), min(h - 1, d) + 1)
+        xs = d - ys
+        left, up, ul = out[ys + 1, xs], out[ys, xs + 1], out[ys, xs]
+        fd = f[ys]
+        pred = np.select([fd == 1, fd == 2, fd == 3, fd == 4],
+                         [left, up, (left + up) >> 1, _paeth(left, up, ul)])
+        out[ys + 1, xs + 1] = (cur[ys, xs] + pred) & 0xFF
+    return out[1:, 1:].reshape(h, stride).astype(np.uint8)
+
+
+def read_png8(path: str) -> np.ndarray:
+    """PNG → (H, W, C) uint8 with C = 1 (gray), 2 (gray+alpha), 3 (RGB,
+    palette) or 4 (RGBA). 16-bit samples keep their high byte."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIG:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, plte, hdr = 8, [], None, None
+    while pos + 8 <= len(data):
+        n, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if ctype == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    w, h, depth, color, _, _, interlace = hdr
+    if interlace or color not in _PNG_CHANNELS or depth not in (8, 16) \
+            or (color == 3 and depth != 8):
+        raise ValueError(f"{path}: PNG color type {color}, depth {depth}, "
+                         f"interlace {interlace} unsupported")
+    nc = _PNG_CHANNELS[color]
+    bpp = nc * depth // 8
+    px = _png_unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
+    px = px.reshape(h, w, nc, depth // 8)[..., 0]      # big-endian high byte
+    if color == 3:
+        if plte is None:
+            raise ValueError(f"{path}: palette PNG without PLTE")
+        return plte[px[..., 0]]
+    return px
+
+
+def _png_filter(px: np.ndarray, ftype: int, bpp: int) -> np.ndarray:
+    """Apply one PNG filter type to every row of (h, stride) uint8."""
+    x = px.astype(np.int32)
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    left = np.zeros_like(x)
+    left[:, bpp:] = x[:, :-bpp]
+    ul = np.zeros_like(x)
+    ul[1:, bpp:] = x[:-1, :-bpp]
+    pred = {0: 0, 1: left, 2: up, 3: (left + up) >> 1,
+            4: _paeth(left, up, ul)}[ftype]
+    return ((x - pred) & 0xFF).astype(np.uint8)
+
+
+def _png_chunk(ctype: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + ctype + body + \
+        struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF)
+
+
+def write_png8(path: str, arr: np.ndarray, palette=None, filter_type=1):
+    """(H, W) / (H, W, C) uint8 → 8-bit PNG: C = 1 gray, 2 gray+alpha,
+    3 RGB, 4 RGBA; with `palette` ((N, 3) uint8) `arr` holds palette
+    indices. Every row uses `filter_type` (0 None .. 4 Paeth)."""
+    arr = np.asarray(arr, np.uint8)
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    h, w, nc = arr.shape
+    if palette is not None:
+        color = 3
+    else:
+        color = {1: 0, 2: 4, 3: 2, 4: 6}[nc]
+    rows = _png_filter(arr.reshape(h, w * nc), filter_type, nc)
+    raw = np.concatenate([np.full((h, 1), filter_type, np.uint8), rows],
+                         axis=1).tobytes()
+    out = _PNG_SIG + _png_chunk(
+        b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+    if palette is not None:
+        out += _png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    out += _png_chunk(b"IDAT", zlib.compress(raw, 6)) + \
+        _png_chunk(b"IEND", b"")
+    with open(path, "wb") as f:
+        f.write(out)
+
+
+def read_tga8(path: str) -> np.ndarray:
+    """TGA (types 1/2/3 uncompressed, 9/10/11 RLE; 8-bit gray, 8-bit
+    color-mapped, 16/24/32-bit true color) → (H, W, C) uint8, top row
+    first, C = 1 (gray), 3 (RGB) or 4 (RGBA)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    (id_len, cmap_type, itype, cmap_first, cmap_len, cmap_bits, _, _, w, h,
+     bits, desc) = struct.unpack("<BBBHHBHHHHBB", data[:18])
+    pos = 18 + id_len
+    cmap = None
+    if cmap_type:
+        cb = (cmap_bits + 7) // 8
+        cmap = _tga_pixels(data[pos:pos + cmap_len * cb], cmap_len, cb)
+        pos += cmap_len * cb
+    base = itype & ~8
+    if base not in (1, 2, 3):
+        raise ValueError(f"{path}: TGA image type {itype} unsupported")
+    bpp = (bits + 7) // 8
+    n = w * h
+    if itype & 8:                                        # RLE packets
+        out = bytearray()
+        while len(out) < n * bpp:
+            head = data[pos]
+            pos += 1
+            cnt = (head & 0x7F) + 1
+            if head & 0x80:
+                out += data[pos:pos + bpp] * cnt
+                pos += bpp
+            else:
+                out += data[pos:pos + cnt * bpp]
+                pos += cnt * bpp
+        raw = bytes(out[:n * bpp])
+    else:
+        raw = data[pos:pos + n * bpp]
+    if base == 1:
+        idx = np.frombuffer(raw, np.uint8 if bpp == 1 else "<u2", count=n)
+        px = cmap[idx.astype(np.int64) - cmap_first]
+    elif base == 3:
+        px = np.frombuffer(raw, np.uint8, count=n)[:, None]
+    else:
+        px = _tga_pixels(raw, n, bpp)
+    px = px.reshape(h, w, -1)
+    if not desc & 0x20:                                  # bottom-up origin
+        px = px[::-1]
+    if desc & 0x10:                                      # right-to-left
+        px = px[:, ::-1]
+    return np.ascontiguousarray(px)
+
+
+def _tga_pixels(raw: bytes, n: int, bpp: int) -> np.ndarray:
+    """n little-endian BGR(A) TGA pixels → (n, 3|4) uint8 RGB(A)."""
+    if bpp == 2:
+        v = np.frombuffer(raw, "<u2", count=n).astype(np.int32)
+        rgb = np.stack([(v >> 10) & 31, (v >> 5) & 31, v & 31], -1)
+        return ((rgb * 255 + 15) // 31).astype(np.uint8)
+    px = np.frombuffer(raw, np.uint8, count=n * bpp).reshape(n, bpp)
+    return px[:, [2, 1, 0, 3][:bpp]]
+
+
+def write_tga8(path: str, arr: np.ndarray):
+    """(H, W) / (H, W, C) uint8 → uncompressed TGA, C = 1 gray, 3 RGB,
+    4 RGBA, top-left origin."""
+    arr = np.asarray(arr, np.uint8)
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    h, w, nc = arr.shape
+    if nc not in (1, 3, 4):
+        raise ValueError(f"TGA write: {nc} channels unsupported")
+    px = arr.reshape(-1, nc)
+    if nc >= 3:
+        px = px[:, [2, 1, 0, 3][:nc]]
+    head = struct.pack("<BBBHHBHHHHBB", 0, 0, 3 if nc == 1 else 2, 0, 0, 0,
+                       0, 0, w, h, 8 * nc, 0x20 | (8 if nc == 4 else 0))
+    with open(path, "wb") as f:
+        f.write(head + px.tobytes())
 
 
 def read_pfm(path: str) -> np.ndarray:
@@ -222,9 +429,7 @@ def write_image(path: str, img: np.ndarray):
     elif ext == ".exr":
         write_exr(path, img)
     elif ext == ".tga":
-        from PIL import Image
-        arr = _to_srgb8(img)
-        Image.fromarray(arr).save(path)
+        write_tga8(path, _to_srgb8(img))
     else:
         raise ValueError(f"unsupported output format {ext}")
 
@@ -238,8 +443,7 @@ def _to_srgb8(img):
 
 def write_png(path: str, img: np.ndarray):
     """Gamma-corrected 8-bit PNG (imageio.rs:52-74)."""
-    from PIL import Image
-    Image.fromarray(_to_srgb8(img)).save(path)
+    write_png8(path, _to_srgb8(img))
 
 
 def _exr_attr(name: str, ty: str, data: bytes) -> bytes:

@@ -5,7 +5,7 @@ sampler, api.rs:205-215). Instead of stateful per-tile sampler objects, every
 lane derives dimension d of sample s at pixel p directly:
   02sequence: (0,2)-sequence point s with per-(pixel, dim) XOR scrambles
   random:     murmur-hashed uniforms
-Deterministic under any sharding — the TPU analog of the reference's
+Deterministic under any sharding — the wavefront analog of the reference's
 deterministic per-tile reseed (renderer.rs:83-84).
 """
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 Reference: texture/imagemap.rs:21-99 keeps a per-file MIPMap cache, and each
 ImageTexture evaluates its own MIPMap. Under static SPMD shapes that design
-costs one full-wavefront lookup per DISTINCT imagemap per bounce
-(docs/PERF.md "textured-material dispatch"). The atlas flips the dispatch:
+costs one full-wavefront lookup per DISTINCT imagemap per bounce. The
+atlas flips the dispatch:
 all pyramids are packed into one (T, 3) texel array with static per-(image,
 level) offset metadata, the per-lane image id becomes a gather index, and
 the material set evaluates ONE EWA lookup per parameter SLOT (Kd, Ks, ...)
@@ -74,9 +74,9 @@ def atlas_texels(images: List[list]):
 def atlas_quad_texels(images: List[list]):
     """(T, 12) rows [v00 v10 v01 v11]: each texel row carries its 2x2
     bilerp neighborhood with REPEAT wrapping baked in via jnp.roll, so a
-    bilerp costs ONE row gather instead of four texel gathers (bulk-gather
-    cost is per-index, docs/PERF.md fact 6 — an EWA lookup drops from 64
-    to 16 gathers). Valid only when every registration uses WRAP_REPEAT
+    bilerp costs ONE row gather instead of four texel gathers (an EWA
+    lookup drops from 64 to 16 gathers; whether that pays on H100 is ROADMAP
+    queue 1 item 6). Valid only when every registration uses WRAP_REPEAT
     (see all_repeat); rows are linear views of the pyramids, so texel
     cotangents sum over the 4 duplicates and gradients stay exact."""
     parts = []
@@ -205,12 +205,12 @@ def atlas_lookup_ewa(texels, meta, levels, regs, reg, si,
     l1 = jnp.minimum(l0 + 1, L - 1)
     dl = (level - l0)[..., None]
 
-    # NOTE (round 5): a tap-axis vectorization (stack the 8 taps into one
-    # (n_taps, B)-index gather per level/corner) was built and MEASURED
-    # SLOWER on chip: textured dragon 431k -> 378k rays/s (-12%) — the
-    # (T, B, 3) intermediates defeat XLA's fusion of the small per-tap
-    # gathers into the surrounding elementwise code. The scalar tap loop
-    # below is the measured-faster form; see docs/PERF.md.
+    # NOTE: a tap-axis vectorization (stack the 8 taps into one
+    # (n_taps, B)-index gather per level/corner) was built and measured
+    # slower on the previous accelerator — the (T, B, 3) intermediates
+    # defeat XLA's fusion of the small per-tap gathers into the surrounding
+    # elementwise code. Not yet measured on H100; the scalar tap loop
+    # stays.
     out = jnp.zeros(st.shape[:-1] + (3,), jnp.float32)
     wsum = 0.0
     for i in range(n_taps):

@@ -7,7 +7,7 @@ a voxel grid over the scene bounds where each voxel holds a Distribution1D
 over lights, built lazily on first lookup from 128 Halton-sampled unoccluded
 contribution estimates and stored in a lock-free hash table.
 
-TPU-native redesign: laziness and lock-free hashing make no sense on an
+Dense redesign: laziness and lock-free hashing make no sense on an
 accelerator. We precompute the ENTIRE dense grid in one batched jitted pass
 at scene-freeze time — every voxel's 128 Halton points × every light's
 sample_li evaluated as one big masked tensor op — and a lookup becomes a

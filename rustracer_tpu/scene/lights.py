@@ -47,8 +47,7 @@ class LightTables(NamedTuple):
     l_nondelta_rows: jnp.ndarray  # (A,) int32
     # per-light precompute (make_lights(geom=...)): area-light prim areas
     # and triangle vertices, so per-lane NEE never gathers the big mesh
-    # tables (a bulk gather costs ~1.1 ms / 2^18 indices on v5e regardless
-    # of the table; indexing these (L,...) tables is ~free). pre_flag is a
+    # tables (indexing these small (L,...) tables instead is cheap). pre_flag is a
     # shape-(1,) static signal; without geom the runtime fallback gathers
     # the mesh tables as before.
     l_area: jnp.ndarray       # (L,) f32 prim area (0 for non-area rows)

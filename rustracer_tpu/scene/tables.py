@@ -50,9 +50,8 @@ class GeometryTables(NamedTuple):
     # packed per-triangle shading rows: ONE (T, 32) row gather replaces the
     # 13 separate table gathers build_interaction otherwise pays per lane
     # (t_idx + 3x tv_p + 3x tv_n + 3x tv_uv + flags + material + arealight).
-    # Measured on v5e: a bulk gather costs ~1.1 ms per 2^18 indices
-    # REGARDLESS of row width (3..128 floats), so 13 gathers -> 1 is ~12 ms
-    # per full-width interaction build. Layout per row:
+    # Chosen where a gather cost per index, not per byte; not yet measured
+    # on H100. Layout per row:
     #   [0:9) p0 p1 p2 | [9:18) n0 n1 n2 | [18:24) uv0 uv1 uv2 |
     #   24 flags (bit0 has_uv, bit1 has_n, bit2 reverse, bitcast i32) |
     #   25 material (bitcast) | 26 arealight (bitcast) | 27:32 pad
@@ -235,10 +234,11 @@ def intersect_quadrics_all(tables: GeometryTables, ray: Ray):
     """Brute-force closest hit over all quadrics: returns (hit, t, qid).
 
     Implemented as a fori_loop over quadrics with elementwise best-tracking
-    instead of a (B, Q) broadcast + argmin: the XLA TPU fusion pass crashes
-    (SIGILL/SIGSEGV in TpuPriorityFusionQueue) or degenerates to minutes-long
-    compiles when a cross-Q reduce is fused into the intersection producers.
-    Quadric counts are small, so the sequential loop costs little.
+    instead of a (B, Q) broadcast + argmin: the previous accelerator's XLA
+    fusion pass crashed or degenerated to minutes-long compiles when a
+    cross-Q reduce was fused into the intersection producers (the plain form
+    on the GPU is ROADMAP queue 3 item 3). Quadric counts are small, so the
+    sequential loop costs little.
     """
     nq = tables.n_quadrics
     ox, oy, oz = ray.o[..., 0], ray.o[..., 1], ray.o[..., 2]
@@ -246,7 +246,7 @@ def intersect_quadrics_all(tables: GeometryTables, ray: Ray):
 
     def body(i, carry):
         # component-form transform + hit-t only: keeps the loop body dense
-        # on the VPU (a (B, 3) intermediate maps the size-3 axis onto the
+        # elementwise (a (B, 3) intermediate maps the size-3 axis onto the
         # 128-lane dim at ~2% utilization)
         t_best, qid = carry
         m = tables.q_w2o[i]
@@ -277,8 +277,8 @@ def intersect_quadrics_all(tables: GeometryTables, ray: Ray):
 def intersect_triangles_brute(tables: GeometryTables, ray: Ray):
     """Brute-force closest hit over all triangles: (hit, t, tid).
 
-    fori_loop over triangles (same TPU-compiler rationale as the quadric
-    loop); only used for tiny scenes — meshes go through the BVH."""
+    fori_loop over triangles (same compiler rationale as the quadric loop);
+    only used for tiny scenes — meshes go through the BVH."""
     nt = tables.n_triangles
 
     def body(i, carry):
@@ -596,8 +596,7 @@ def build_interaction(tables: GeometryTables, ray: Ray, hit, t, prim,
 
     # --- triangle branch ---
     # ONE packed-row gather (t_shade layout) replaces 13 separate table
-    # gathers — measured ~12 ms/2^18 lanes saved on v5e (bulk-gather cost
-    # is per-index, not per-byte). Instanced hits (inst >= 0): the stored
+    # gathers (see GeometryTables.t_shade). Instanced hits (inst >= 0): the stored
     # rows are OBJECT-space; transform the three vertices (and below, the
     # vertex normals) to world so the rest of the branch is
     # space-agnostic. The reference instead transforms the finished

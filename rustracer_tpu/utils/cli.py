@@ -2,8 +2,9 @@
 
 Reference: rustracer-cli/src/{main,argparse}.rs —
 `rustracer <scene.pbrt> [-t N] [-o out] [-v]`. The `-t` thread count maps to
-the lane-batch size knob (TPU wavefront width); `--devices` configures a
-virtual device mesh for sharded rendering.
+the lane-batch size knob (log2 of the wavefront width). The render runs on
+JAX's default backend, the GPU where there is one; `--cpu` asks for the CPU,
+and a run that lands on the CPU without it says so.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import time
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="rustracer-tpu",
-        description="TPU-native differentiable path tracer (PBRT scenes)")
+        description="Differentiable wavefront path tracer (PBRT scenes)")
     p.add_argument("scene", help="PBRT scene file")
     p.add_argument("-o", "--output", default=None,
                    help="override output image filename")
@@ -42,16 +43,19 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     logging.basicConfig(
-        level=logging.DEBUG if args.verbose else logging.INFO,
-        format="%(levelname)s %(name)s: %(message)s",
-        filename="/tmp/rustracer_tpu.log", filemode="w")
-    console = logging.StreamHandler()
-    console.setLevel(logging.INFO if args.verbose else logging.WARNING)
-    logging.getLogger().addHandler(console)
+        level=logging.INFO if args.verbose else logging.WARNING,
+        format="%(levelname)s %(name)s: %(message)s")
 
+    import jax
     if args.cpu:
-        import jax
         jax.config.update("jax_platforms", "cpu")
+    from .device import configure_compile_cache, device_summary
+    configure_compile_cache()
+    dev = device_summary()
+    print(f"device: {dev['platform']} ({dev['kind']}) x{dev['count']}")
+    if dev["platform"] == "cpu" and not args.cpu:
+        print("note: JAX found no accelerator; rendering on the CPU",
+              file=sys.stderr)
 
     from ..utils.stats import init_stats, print_stats, print_phases
     from ..scene.api import parse_scene
@@ -76,7 +80,6 @@ def main(argv=None):
 
     t1 = time.time()
     if args.profile:
-        import jax
         jax.profiler.start_trace(args.profile)
     img = bundle.render(progress=args.progress, max_lanes=max_lanes,
                         checkpoint=args.checkpoint,
@@ -84,9 +87,8 @@ def main(argv=None):
     import numpy as np
     img = np.asarray(img)
     if args.profile:
-        import jax
         jax.profiler.stop_trace()
-        print(f"wrote xprof trace to {args.profile}")
+        print(f"wrote profiler trace to {args.profile}")
     t_render = time.time() - t1
     print(f"render time: {t_render:.2f}s")
 

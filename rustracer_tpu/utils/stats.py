@@ -31,6 +31,11 @@ def init_stats():
     _phases.clear()
 
 
+def phases() -> Dict[str, float]:
+    """Copy of the per-phase wall seconds recorded since init_stats()."""
+    return dict(_phases)
+
+
 class time_phase:
     """Context manager accumulating wall time under a phase name — the
     per-phase observability the reference lacks (only a render-time print,

@@ -3,7 +3,7 @@ from setuptools import setup, find_packages
 setup(
     name="rustracer-tpu",
     version="0.1.0",
-    description="TPU-native differentiable physically-based renderer "
+    description="Differentiable physically-based wavefront renderer "
                 "(JAX/XLA + native C++ BVH builder)",
     packages=find_packages(include=["rustracer_tpu", "rustracer_tpu.*"]),
     python_requires=">=3.10",

@@ -3,7 +3,7 @@
 Reference: shapes/mesh.rs — alpha_mask rejects intersections whose alpha
 texture evaluates to 0 (mesh.rs:355-367); shadow rays additionally honor
 shadow_alpha_mask (mesh.rs:572-577); both resolve from "alpha"/"shadowalpha"
-params (mesh.rs:134-156). TPU redesign: textures are baked to an alpha atlas
+params (mesh.rs:134-156). Wavefront redesign: textures are baked to an alpha atlas
 (bundle.py::_bake_alpha) and rejected hits re-trace from just past the
 cutout (tables.py::_closest_with_alpha).
 """

@@ -1,8 +1,8 @@
 """EWA anisotropic filtering: validate the fixed 4-tap approximation.
 
 Reference: mipmap.rs:227-410 lookup_diff — true EWA loops over an elliptical
-footprint with a Gaussian kernel (variable extent, hostile to lockstep TPU
-code). ops/mipmap.py replaces it with minor-axis level selection + 4
+footprint with a Gaussian kernel (variable extent, hostile to lockstep
+wavefront code). ops/mipmap.py replaces it with minor-axis level selection + 4
 trilinear taps along the major axis; round-1 verdict flagged that this
 deviation was never validated. Here a dense numpy EWA (faithful to the
 reference algorithm) is the oracle.

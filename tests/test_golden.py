@@ -17,6 +17,7 @@ import os
 import numpy as np
 import pytest
 
+from helpers import golden_error
 from rustracer_tpu.scene.api import parse_scene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,10 +45,7 @@ def assert_matches_golden(name, mean_tol=2e-3, p99_tol=2e-2):
     ref = golden(name)
     assert img.shape == ref.shape
     assert np.isfinite(img).all()
-    err = np.abs(img - ref)
-    scale = max(float(ref.mean()), 1e-3)
-    mean_err = float(err.mean()) / scale
-    p99 = float(np.percentile(err, 99)) / scale
+    mean_err, p99 = golden_error(img, ref)
     assert mean_err < mean_tol and p99 < p99_tol, \
         f"{name}: mean_rel_err={mean_err:.5f} p99_rel={p99:.5f}"
 

@@ -1,4 +1,4 @@
-"""SpatialLightDistribution (dense-grid TPU redesign of lightdistrib.rs).
+"""SpatialLightDistribution (dense-grid redesign of lightdistrib.rs).
 
 Checks: PMF validity, proximity weighting (a voxel next to a point light
 prefers that light), CDF-inversion sampling statistics, and that the path

@@ -13,16 +13,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from helpers import cornell_box, cornell_camera
+from helpers import (cornell_box, cornell_camera, frame_lanes,
+                     shared_edge_miss_rate, single_device_train_loss)
 from rustracer_tpu.integrators.path import PathIntegrator
 from rustracer_tpu.parallel.mesh import (make_device_mesh,
                                          make_sharded_train_step,
                                          render_sharded)
-from rustracer_tpu.render.film import Film, FilmState
+from rustracer_tpu.render.film import Film
 from rustracer_tpu.render.filters import Filter
-from rustracer_tpu.render.renderer import (Lanes, RenderConfig, RenderContext,
-                                           Renderer, scrub_radiance)
-from rustracer_tpu.render.sampler import DimAllocator, SamplerConfig
+from rustracer_tpu.render.renderer import (RenderConfig, RenderContext,
+                                           Renderer)
+from rustracer_tpu.render.sampler import SamplerConfig
 from rustracer_tpu.scene.materials import MaterialSet, MatteMaterial
 from rustracer_tpu.scene.textures import ConstantTexture
 
@@ -90,43 +91,12 @@ def test_sharded_grads_match_single_device(imagemaps):
     ctx, cam, film, sampler, integ = _setup(imagemaps)
     mesh = make_device_mesh(data=4, sample=2)
     n_sample = mesh.shape["sample"]
+    px, py, valid = frame_lanes(film, mesh.shape["data"])
 
-    x0, y0, x1, y1 = film.get_sample_bounds()
-    gx, gy = np.meshgrid(np.arange(x0, x1, dtype=np.int32),
-                         np.arange(y0, y1, dtype=np.int32))
-    px, py = gx.ravel(), gy.ravel()
-    pad = (-px.size) % mesh.shape["data"]
-    valid = np.concatenate([np.ones(px.size, bool), np.zeros(pad, bool)])
-    px = np.concatenate([px, np.full(pad, x0, np.int32)])
-    py = np.concatenate([py, np.full(pad, y0, np.int32)])
-    px, py, valid = jnp.asarray(px), jnp.asarray(py), jnp.asarray(valid)
-
-    # reference: single-device loss over the SAME lanes and sample ids.
-    # Differentiate only the FLOAT leaves (atlas_meta/levels are int32).
-    aux = {k: v for k, v in ctx.textures.items()
-           if k in ("atlas_meta", "atlas_levels")}
-    tex_f = {k: v for k, v in ctx.textures.items() if k not in aux}
-
-    def single_loss(textures, target):
-        c = ctx._replace(textures={**textures, **aux})
-        fs = film.init_state()
-        xr, _ = film.full_resolution
-        for s in range(n_sample):
-            pixel_idx = (py.astype(jnp.uint32) * jnp.uint32(xr)
-                         + px.astype(jnp.uint32))
-            lanes = Lanes(pixel_idx=pixel_idx,
-                          sample_idx=jnp.full(pixel_idx.shape, s, jnp.uint32))
-            pixel_xy = jnp.stack([px, py], -1).astype(jnp.float32)
-            p_film, p_lens, _ = sampler.get_camera_sample(
-                pixel_xy, lanes.pixel_idx, lanes.sample_idx)
-            ray = cam.generate_ray_differential(p_film, p_lens)
-            ray = ray.scaled_differentials(1.0 / np.sqrt(max(1, sampler.spp)))
-            dims = DimAllocator()
-            L = scrub_radiance(integ.li(c, ray, lanes, sampler, dims))
-            fs = film.add_samples(fs, p_film, L, valid=valid)
-        img = film.to_image(FilmState(fs.rgb, fs.wsum,
-                                      jnp.zeros_like(fs.rgb)))
-        return jnp.mean((img - target) ** 2)
+    # reference: single-device loss over the SAME lanes and sample ids
+    single_loss, tex_f = single_device_train_loss(
+        ctx, cam, film, sampler, integ, px, py, valid, n_sample)
+    aux = {k: v for k, v in ctx.textures.items() if k not in tex_f}
 
     target = jnp.zeros(RES[::-1] + (3,), jnp.float32)
     lr = 0.25
@@ -165,65 +135,6 @@ def test_watertight_shared_edge_no_cracks():
     exact-sign edge functions (ops/triangle.py _edge_fn residual) may
     attribute the hit to either side but never to neither. Quantifies the
     edge-grazing miss rate the reference's f64 fallback guards against."""
-    import jax.numpy as jnp
-    from rustracer_tpu.core.ray import make_ray
-    from rustracer_tpu.ops.triangle import triangle_intersect
-
-    rng = np.random.default_rng(77)
-    n = 4096
-    # two triangles sharing edge (a, b), c1 strictly on the OPPOSITE side
-    # of the edge line (point reflection through the edge midpoint, plus an
-    # out-of-plane offset so the pair is non-coplanar like a real mesh fold)
-    a = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
-    b = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
-    c0 = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
-    nrm = np.cross(b - a, c0 - a)
-    nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-9)
-    c1 = (a + b - c0 + nrm * rng.uniform(-0.5, 0.5, (n, 1))).astype(np.float32)
-    # ray origin off-plane; target point ON the shared edge, away from the
-    # endpoints (endpoint-grazing rays can leave BOTH triangles' far edges)
-    o = rng.uniform(4, 6, (n, 3)).astype(np.float32) * \
-        np.sign(rng.normal(size=(n, 3))).astype(np.float32)
-    t = rng.uniform(0.05, 0.95, (n, 1)).astype(np.float32)
-    target = a * t + b * (1 - t)           # f32 point on the edge (rounded)
-    d = (target - o)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    ray_o, ray_d = jnp.asarray(o), jnp.asarray(d)
-    tmax = jnp.full(n, np.inf, jnp.float32)
-    # consistent mesh winding: the shared edge is traversed (a,b) in tri0
-    # and (b,a) in tri1, so the shared-edge function negates EXACTLY and
-    # one side's same-sign test must accept
-    h0 = triangle_intersect(ray_o, ray_d, tmax, jnp.asarray(a),
-                            jnp.asarray(b), jnp.asarray(c0)).hit
-    h1 = triangle_intersect(ray_o, ray_d, tmax, jnp.asarray(b),
-                            jnp.asarray(a), jnp.asarray(c1)).hit
-    hit_any = np.asarray(h0 | h1)
-
-    # A miss is only a CRACK when the two triangles actually cover both
-    # sides of the edge as seen along the ray — rays grazing a fold
-    # silhouette (projected c0/c1 on the SAME side) legitimately miss.
-    # Classify in f64 shear space, excluding borderline projections.
-    kz = np.argmax(np.abs(d), axis=-1)
-    kx, ky = (kz + 1) % 3, (kz + 2) % 3
-    ar = np.arange(n)
-
-    def proj(p):
-        q = (p - o).astype(np.float64)
-        qx, qy, qz = q[ar, kx], q[ar, ky], q[ar, kz]
-        dx_, dy_, dz_ = (d.astype(np.float64)[ar, kx],
-                         d.astype(np.float64)[ar, ky],
-                         d.astype(np.float64)[ar, kz])
-        return qx - dx_ / dz_ * qz, qy - dy_ / dz_ * qz
-
-    ax_, ay_ = proj(a)
-    bx_, by_ = proj(b)
-
-    def side(p):
-        px_, py_ = proj(p)
-        return (bx_ - ax_) * (py_ - ay_) - (by_ - ay_) * (px_ - ax_)
-
-    s0, s1 = side(c0), side(c1)
-    covered = (s0 * s1 < 0) & (np.abs(s0) > 1e-7) & (np.abs(s1) > 1e-7)
-    assert covered.sum() > n // 2          # the filter keeps most rays
-    miss_rate = 1.0 - hit_any[covered].mean()
+    miss_rate, covered = shared_edge_miss_rate(n=4096)
+    assert covered > 4096 // 2             # the filter keeps most rays
     assert miss_rate < 0.002, f"edge-crack miss rate {miss_rate:.4%}"

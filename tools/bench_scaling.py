@@ -1,12 +1,9 @@
 """Scaling-efficiency harness: sharded render step time at data=1,2,4,...,N.
 
-BASELINE.md demands >=80% scaling efficiency from 1 chip to N. This tool
-measures it on whatever devices exist: real chips when run under a multi-chip
-runtime, or the 8-virtual-CPU mesh (XLA_FLAGS=--xla_force_host_platform_
-device_count=8) for a functional check. NOTE: virtual CPU devices timeshare
-the same physical cores, so virtual-mesh "efficiency" is a lower bound on
-real-chip efficiency — the number that matters is from real hardware; the
-harness and its collective pattern are identical in both cases.
+BASELINE.md demands >=80% scaling efficiency from 1 card to N. This tool
+measures it on the GPUs of one host and refuses any other backend (virtual
+CPU devices timeshare the same cores, so their "efficiency" measures host
+contention); rates carry the cards' names and power limits.
 
 Weak scaling: each device renders a fixed LANES_PER_DEVICE slab of Cornell
 lanes with the full path integrator + psum film merge; a perfectly-scaling
@@ -19,18 +16,17 @@ import os
 import sys
 import time
 
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tests"))
 
-import jax
-
-if not os.environ.get("BENCH_SCALING_REAL"):
-    jax.config.update("jax_platforms", "cpu")
-
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+
+from rustracer_tpu.utils.device import (card_label,  # noqa: E402
+                                        configure_compile_cache,
+                                        require_gpu)
 
 
 def build_step(mesh, res=(64, 64), spp=2):
@@ -125,15 +121,12 @@ def time_plain(lanes_per_device, spp, reps=5):
 def main():
     lanes = int(sys.argv[1]) if len(sys.argv) > 1 else 1 << 14
     spp = int(sys.argv[2]) if len(sys.argv) > 2 else 2
-    n_dev = len(jax.devices())
+    configure_compile_cache()
+    dev = require_gpu("tools/bench_scaling.py")
+    n_dev = dev["count"]
     sizes = [n for n in (1, 2, 4, 8, 16, 32) if n <= n_dev]
-    virtual = jax.devices()[0].platform == "cpu"
-    print(f"devices: {n_dev} x {jax.devices()[0].platform}, "
+    print(f"devices: {n_dev} x {dev['kind']} ({card_label()}), "
           f"{lanes} lanes/device, {spp} spp  (weak scaling)")
-    if virtual and n_dev > 1:
-        print("NOTE: virtual CPU mesh — devices timeshare one CPU, so the "
-              "eff column is a functional check only; real efficiency "
-              "requires real chips (set BENCH_SCALING_REAL=1).")
     tp = time_plain(lanes, spp)
     print(f"unsharded 1-device step: {tp * 1e3:.1f} ms "
           f"(sharding overhead shows in the data=1 row)")

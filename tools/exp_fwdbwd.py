@@ -1,9 +1,9 @@
-"""Cornell fwd+bwd sweep (round-5 item 3): remat x compaction combos.
+"""Cornell fwd+bwd sweep: remat x compaction combos.
 
-The round-4 record: 1.18 Mray/s with jax.checkpoint per sample and
-compaction off (its scatter transposes cost ~14%). Round 5 added a
-custom-vjp permutation compact (path.perm_take/perm_put) whose transpose
-is a masked gather; this sweeps all four combos to pick the bench combo.
+The integrator has a custom-vjp permutation compact
+(path.perm_take/perm_put) whose transpose is a masked gather, and the
+bench step can wrap each sample in jax.checkpoint; this times all four
+combos on the GPU (any other backend is refused) to pick the bench combo.
 Usage: python tools/exp_fwdbwd.py
 """
 import os
@@ -11,15 +11,15 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
-from bench import build_cornell, bench_cornell_fwdbwd, log
+from bench import build_cornell, bench_cornell_fwdbwd
+from rustracer_tpu.utils.device import (card_label, configure_compile_cache,
+                                        require_gpu)
 
 
 def main():
+    configure_compile_cache()
+    require_gpu("tools/exp_fwdbwd.py")
+    print(f"card: {card_label()}", flush=True)
     ctx, cam, film, sampler, integ = build_cornell()
     for remat in (True, False):
         for compact in (False, True):

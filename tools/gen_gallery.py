@@ -19,9 +19,9 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
-from PIL import Image  # noqa: E402
 
 from rustracer_tpu.core.spectrum import srgb_encode  # noqa: E402
+from rustracer_tpu.render.imageio import write_png8  # noqa: E402
 
 OUT = os.path.join(REPO, "renders")
 
@@ -35,7 +35,7 @@ def main():
         img = np.load(path)["img"]
         png = np.asarray(srgb_encode(jnp.asarray(img)))
         out = os.path.join(OUT, f"rt-{name}.png")
-        Image.fromarray((np.clip(png, 0, 1) * 255).astype(np.uint8)).save(out)
+        write_png8(out, (np.clip(png, 0, 1) * 255).astype(np.uint8))
         names.append(name)
         print(f"wrote {out} {img.shape}")
     with open(os.path.join(OUT, "README.md"), "w") as f:

@@ -18,8 +18,10 @@ sys.path.insert(0, REPO)
 
 import jax  # noqa: E402
 
+from rustracer_tpu.utils.device import REPO_ROOT, configure_compile_cache  # noqa: E402
+
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_cpu")
+configure_compile_cache(os.path.join(REPO_ROOT, ".jax_cache_cpu"))
 
 import numpy as np  # noqa: E402
 

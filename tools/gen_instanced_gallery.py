@@ -1,10 +1,11 @@
 """Instanced-array flagship render: a 5x5 grid of instanced hero meshes
 (one shared 81,920-tri object -> 2.05M effective triangles through the
 two-level BVH's instance records) under an area light, path-traced on the
-TPU. Demonstrates shared-geometry instancing at scale
+GPU. Demonstrates shared-geometry instancing at scale
 (reference primitive.rs:89-118 TransformedPrimitive).
 
-Writes renders/rt-instanced-5x5.png and prints rays/s.
+Writes renders/rt-instanced-5x5.png and prints rays/s with the card's name
+and power limit; refuses to run on any backend but a GPU.
 Usage: python tools/gen_instanced_gallery.py [subdiv] [res] [spp]
 """
 import os
@@ -13,11 +14,6 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-
-import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +29,8 @@ from rustracer_tpu.scene.lights import LIGHT_AREA, make_lights
 from rustracer_tpu.scene.materials import MaterialSet, MatteMaterial
 from rustracer_tpu.scene.tables import make_geometry
 from rustracer_tpu.scene.textures import ConstantTexture
+from rustracer_tpu.utils.device import (card_label, configure_compile_cache,
+                                        require_gpu)
 from rustracer_tpu.utils.meshgen import bumpy_sphere
 
 
@@ -126,6 +124,9 @@ def main():
     w = int(sys.argv[2]) if len(sys.argv) > 2 else 1024
     res = (w, w * 3 // 4)
     spp = int(sys.argv[3]) if len(sys.argv) > 3 else 16
+    configure_compile_cache()
+    require_gpu("tools/gen_instanced_gallery.py")
+    card = card_label()
     ctx, cam, film, sampler, integ = build(subdiv, res, spp)
     r = Renderer(integ.li, cam, film, sampler,
                  RenderConfig(max_lanes=1 << 18, collect_stats=False))
@@ -140,15 +141,15 @@ def main():
     img = np.asarray(film.to_image(fs))
     dt = time.time() - t0
     rays = res[0] * res[1] * spp
-    print(f"{rays/dt/1e3:.1f} krays/s ({dt:.1f}s), mean {img.mean():.4f}",
-          flush=True)
+    print(f"{rays/dt/1e3:.1f} krays/s ({dt:.1f}s) on {card}, "
+          f"mean {img.mean():.4f}", flush=True)
     assert np.isfinite(img).all() and img.mean() > 1e-3
 
-    from PIL import Image
     from rustracer_tpu.core.spectrum import srgb_encode
+    from rustracer_tpu.render.imageio import write_png8
     png = np.asarray(srgb_encode(jnp.asarray(img)))
     out = os.path.join(REPO, "renders", "rt-instanced-5x5.png")
-    Image.fromarray((np.clip(png, 0, 1) * 255).astype(np.uint8)).save(out)
+    write_png8(out, (np.clip(png, 0, 1) * 255).astype(np.uint8))
     print("wrote", out, flush=True)
 
 

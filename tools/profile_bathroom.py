@@ -1,4 +1,4 @@
-"""Bathroom 1080p step breakdown (round-5 VERDICT item 2).
+"""Bathroom 1080p step breakdown.
 
 Decomposes the bathroom render step by timing the full step against
 surgically-stubbed variants (same shapes, same scene):
@@ -12,8 +12,9 @@ surgically-stubbed variants (same shapes, same scene):
 
 Each variant is timed post-compile on a 2-spp slice at 1080p, like the
 bench. Differences are coarse (stubs also change downstream dead-lane
-masks) but give an honest first map of where the 14x-vs-Cornell gap
-lives. Usage: python tools/profile_bathroom.py [xres yres]
+masks) but give an honest first map of where the bathroom's step goes.
+Runs on the GPU only; rates carry the card's name and power limit.
+Usage: python tools/profile_bathroom.py [xres yres]
 """
 import os
 import sys
@@ -25,8 +26,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from rustracer_tpu.utils.device import (card_label, configure_compile_cache,
+                                        require_gpu)
 
 
 def timed_render(ctx, cam, film, sampler, integ, res, label, n_runs=2,
@@ -35,15 +36,13 @@ def timed_render(ctx, cam, film, sampler, integ, res, label, n_runs=2,
     cfg = RenderConfig(max_lanes=1 << 18, collect_stats=False)
     r = Renderer(integ.li, cam, film, sampler, cfg)
     t0 = time.perf_counter()
-    fs = r.render_state(ctx, sample_stop=1)
-    np.asarray(film.to_image(fs))
+    jax.block_until_ready(r.render_state(ctx, sample_stop=1))
     print(f"  [{label}] compiled in {time.perf_counter()-t0:.0f}s",
           flush=True)
     times = []
     for _ in range(n_runs):
         t0 = time.perf_counter()
-        fs = r.render_state(ctx, sample_stop=spp_measure)
-        np.asarray(film.to_image(fs))
+        jax.block_until_ready(r.render_state(ctx, sample_stop=spp_measure))
         times.append(time.perf_counter() - t0)
     best = min(times)
     rays = res[0] * res[1] * spp_measure
@@ -59,6 +58,9 @@ def main():
         os.path.dirname(os.path.abspath(__file__)), ".."))
     from bench import build_bathroom
     import dataclasses
+    configure_compile_cache()
+    require_gpu("tools/profile_bathroom.py")
+    print(f"card: {card_label()}", flush=True)
 
     print(f"building bathroom {res} ...", flush=True)
     ctx, cam, film, sampler, integ = build_bathroom(res)

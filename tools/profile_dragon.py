@@ -1,20 +1,18 @@
-"""Dragon (matte hero) step breakdown — where do 1.8 us/camera-ray go?
+"""Dragon (matte hero) step breakdown — where does a camera ray's time go?
 
 Same stub-ablation methodology as profile_bathroom.py, applied to the
 headline config: the matte 327k-tri dragon at 1024^2, depth 5, 2^18-lane
-wavefronts. Round-5 state: closest-hit traversal is at its measured
-latency ceiling (~4.4 Mray/s, docs/PERF.md), yet end-to-end is 555k
-camera rays/s — alive-weighted traversal only accounts for ~25% of the
-step, so the remaining ~75% is per-bounce wavefront machinery. This tool
-maps that residual:
+wavefronts. It compares the full step with stubbed variants to map how
+much of it is traversal and how much per-bounce wavefront machinery:
 
   - depth-1     : camera traversal + emission only (prologue floor)
   - no-NEE      : estimate_direct_light_side stubbed to zeros
   - flat-sampler: get_1d/get_2d return cheap constants — bounds the
-                  (0,2)-sequence scramble/Gray-code VPU share
+                  (0,2)-sequence scramble/Gray-code share
   - no-compact  : inter-bounce half-compaction disabled (its benefit)
   - closest-hit : standalone bvh16 traversal on the camera wavefront
 
+Runs on the GPU only; rates carry the card's name and power limit.
 Usage: python tools/profile_dragon.py [spp_measure]
 """
 import os
@@ -27,8 +25,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from rustracer_tpu.utils.device import (card_label, configure_compile_cache,
+                                        require_gpu)
 
 RES = (1024, 1024)
 
@@ -39,15 +37,13 @@ def timed_render(ctx, cam, film, sampler, integ, label, n_runs=2,
     cfg = RenderConfig(max_lanes=1 << 18, collect_stats=False)
     r = Renderer(integ.li, cam, film, sampler, cfg)
     t0 = time.perf_counter()
-    fs = r.render_state(ctx, sample_stop=1)
-    np.asarray(film.to_image(fs))
+    jax.block_until_ready(r.render_state(ctx, sample_stop=1))
     print(f"  [{label}] compiled in {time.perf_counter()-t0:.0f}s",
           flush=True)
     times = []
     for _ in range(n_runs):
         t0 = time.perf_counter()
-        fs = r.render_state(ctx, sample_stop=spp_measure)
-        np.asarray(film.to_image(fs))
+        jax.block_until_ready(r.render_state(ctx, sample_stop=spp_measure))
         times.append(time.perf_counter() - t0)
     best = min(times)
     rays = RES[0] * RES[1] * spp_measure
@@ -76,6 +72,9 @@ def build_matte_dragon():
 def main():
     spp = int(sys.argv[1]) if len(sys.argv) > 1 else 2
     import dataclasses
+    configure_compile_cache()
+    require_gpu("tools/profile_dragon.py")
+    print(f"card: {card_label()}", flush=True)
 
     print("building matte dragon ...", flush=True)
     ctx, cam, film, sampler, integ = build_matte_dragon()
@@ -105,7 +104,7 @@ def main():
         P.estimate_direct_light_side = orig_ed
 
     # flat sampler: constants instead of scrambled (0,2)-sequence points.
-    # Timing-only (RR/light picks degenerate); bounds the sampler VPU share.
+    # Timing-only (RR/light picks degenerate); bounds the sampler share.
     from rustracer_tpu.render.sampler import SamplerConfig
     o1, o2 = SamplerConfig.get_1d, SamplerConfig.get_2d
     try:

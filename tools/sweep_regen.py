@@ -1,5 +1,7 @@
 """Sweep the ray-regeneration driver constants (A = active window,
-S = steps between refills) on the dragon-class mesh, closest hit.
+S = steps between refills) on the dragon-class mesh, closest hit, on the
+GPU (any other backend is refused); rates carry the card's name and power
+limit.
 
 Usage: python tools/sweep_regen.py [log2_batch]
 """
@@ -17,6 +19,8 @@ from rustracer_tpu.accel import traverse16 as t16
 from rustracer_tpu.accel.bvh import build_bvh_arrays
 from rustracer_tpu.scene.tables import make_geometry
 from rustracer_tpu.utils.meshgen import bumpy_sphere
+from rustracer_tpu.utils.device import (card_label, configure_compile_cache,
+                                        require_gpu)
 from bench_traverse import camera_like_rays
 
 
@@ -40,6 +44,9 @@ def dragon_geom(sub=7):
 def main():
     lb = int(sys.argv[1]) if len(sys.argv) > 1 else 18
     B = 1 << lb
+    configure_compile_cache()
+    require_gpu("tools/sweep_regen.py")
+    print(f"card: {card_label()}")
     geom = dragon_geom()
     rays = camera_like_rays(B)
 
@@ -48,11 +55,11 @@ def main():
             h, t, pid = f(geom, ry, False)[:3]
             return jnp.sum(jnp.where(h, t, 0.0)) + jnp.sum(pid)
         r = jax.jit(once)
-        np.asarray(r(rays))
+        jax.block_until_ready(r(rays))
         ts = []
         for _ in range(reps):
             t0 = time.perf_counter()
-            np.asarray(r(rays))
+            jax.block_until_ready(r(rays))
             ts.append(time.perf_counter() - t0)
         return min(ts)
 
@@ -62,11 +69,11 @@ def main():
     dt = timed(t16._traverse16)
     print(f"plain                : {dt*1e3:8.1f} ms  {B/dt/1e6:6.2f} Mray/s",
           flush=True)
-    cfgs = [(13, 8, 4),                      # round-4 production point
-            (13, 4, 4), (13, 2, 4),          # eager refill (round-5: the
-            (13, 2, 8), (13, 2, 16),         # step cost is gather-latency-
-            (13, 1, 16), (13, 4, 8),         # bound; idle done lanes are
-            (14, 2, 8), (14, 4, 8)]          # the remaining waste)
+    cfgs = [(13, 8, 4),                      # current production point
+            (13, 4, 4), (13, 2, 4),          # eager refill
+            (13, 2, 8), (13, 2, 16),
+            (13, 1, 16), (13, 4, 8),
+            (14, 2, 8), (14, 4, 8)]
     if len(sys.argv) > 2:                    # legacy full sweep
         cfgs = [(14, 16, 1 << 20), (14, 8, 1 << 20),
                 (13, 16, 1 << 20), (13, 8, 1 << 20),

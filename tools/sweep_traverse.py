@@ -5,7 +5,8 @@ iteration for EVERY lane, finished or not, during the majority pass; the
 compacted drain rounds then pay argsort + scatter overhead per round. The
 optimum MAJORITY_ITERS / TAIL_FRACTION depends on the rows/ray distribution
 (bench_traverse.py: p50 ~2, p99 ~21 on a dragon-class mesh), so this sweeps
-both on the actual chip and prints a table. Usage:
+both on the GPU (and refuses any other backend) and prints a table with the
+card's name and power limit. Usage:
 
     python tools/sweep_traverse.py [n_subdiv] [batch]
 """
@@ -22,12 +23,18 @@ from rustracer_tpu.utils.meshgen import bumpy_sphere
 from rustracer_tpu.accel.bvh import build_bvh_arrays
 from rustracer_tpu.scene.tables import make_geometry
 from rustracer_tpu.accel import traverse16 as T
+from rustracer_tpu.utils.device import (card_label,  # noqa: E402
+                                        configure_compile_cache,
+                                        require_gpu)
 from bench_traverse import camera_like_rays, timed  # noqa: E402
 
 
 def main():
     sub = int(sys.argv[1]) if len(sys.argv) > 1 else 7
     batch = int(sys.argv[2]) if len(sys.argv) > 2 else 1 << 18
+    configure_compile_cache()
+    require_gpu("tools/sweep_traverse.py")
+    print(f"card: {card_label()}")
     verts, normals, faces = bumpy_sphere(subdivisions=sub)
     tris = dict(
         tv_p=verts, tv_n=normals,
